@@ -10,13 +10,13 @@ native/libmodem_host.so:
 # Smoke test (reference Makefile:13-15): encode one frame of random
 # bytes to an 8-bit 8 kHz WAV, decode it back, require byte identity.
 test: all
-	mkdir -p /tmp/modem_tpu_test
-	head -c 5380 /dev/urandom > /tmp/modem_tpu_test/uncoded.dat
-	$(PY) -m modem_tpu.cli encode /tmp/modem_tpu_test/encoded.wav \
-		8000 8 1 2000 6 N0CALL /tmp/modem_tpu_test/uncoded.dat
-	$(PY) -m modem_tpu.cli decode /tmp/modem_tpu_test/decoded.dat \
-		/tmp/modem_tpu_test/encoded.wav
-	cmp /tmp/modem_tpu_test/uncoded.dat /tmp/modem_tpu_test/decoded.dat
+	mkdir -p /tmp/modem_test
+	head -c 5380 /dev/urandom > /tmp/modem_test/uncoded.dat
+	$(PY) -m modem.cli encode /tmp/modem_test/encoded.wav \
+		8000 8 1 2000 6 N0CALL /tmp/modem_test/uncoded.dat
+	$(PY) -m modem.cli decode /tmp/modem_test/decoded.dat \
+		/tmp/modem_test/encoded.wav
+	cmp /tmp/modem_test/uncoded.dat /tmp/modem_test/decoded.dat
 	@echo smoke test passed
 
 unittest:
@@ -24,4 +24,4 @@ unittest:
 
 clean:
 	$(MAKE) -C native clean
-	rm -rf .jax_cache /tmp/modem_tpu_test
+	rm -rf .jax_cache /tmp/modem_test

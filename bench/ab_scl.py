@@ -1,7 +1,7 @@
 #!/usr/bin/env python
 """A/B the device SCL decoder against the exact numpy oracle at wire size.
 
-VERDICT round-1 task 1: the reference forks at every information bit
+The reference forks at every information bit
 (decode.cc:530, 165-169); the device backends decode Fast-SSC
 constituent nodes with least-reliable-bit forks.  This harness bounds
 the fidelity gap statistically on the 2^16 wire code: same LLR inputs
@@ -43,14 +43,12 @@ def main():
                     help="no-SPC, T=L-1 exact schedule")
     args = ap.parse_args()
 
-    from modem_tpu import apply_env_platform
-    apply_env_platform()
     import jax
     import jax.numpy as jnp
 
-    from modem_tpu.fec import scl_vm
-    from modem_tpu.fec.polar import PolarCode
-    from modem_tpu.fec.scl_np import scl_decode_np
+    from modem.fec import scl_vm
+    from modem.fec.polar import PolarCode
+    from modem.fec.scl_np import scl_decode_np
 
     if args.t is not None:
         scl_vm.T_RATE1 = args.t

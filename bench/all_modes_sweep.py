@@ -6,7 +6,7 @@ The reference README demonstrates bit-exact recovery through
 This sweeps every operating mode (6-13) at every supported sample rate
 (8/16/44.1/48 kHz) through that chain at the -30 dB operating point
 and reports frames bit-exact + mean payload bit flips — the honest
-whole-surface robustness table for docs/PERFORMANCE.md.
+whole-surface robustness table.
 
 The multipath base delays are in SAMPLES, so the spread factor is
 scaled by rate/8000 to keep the PHYSICAL channel (delays in seconds)
@@ -24,13 +24,11 @@ sys.path.insert(0, ".")
 
 
 def main():
-    from modem_tpu import apply_env_platform
-    apply_env_platform()
-    from modem_tpu import bits as B
-    from modem_tpu import channel
-    from modem_tpu.numerology import MODES, SUPPORTED_RATES, make_config
-    from modem_tpu.encoder import Encoder
-    from modem_tpu.pipeline import BatchPipeline
+    from modem import bits as B
+    from modem import channel
+    from modem.numerology import MODES, SUPPORTED_RATES, make_config
+    from modem.encoder import Encoder
+    from modem.pipeline import BatchPipeline
 
     batch = int(sys.argv[1]) if len(sys.argv) > 1 else 4
     awgn_db = float(sys.argv[2]) if len(sys.argv) > 2 else -30.0

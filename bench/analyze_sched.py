@@ -12,10 +12,10 @@ The min-sum path-metric identity pen(x) = sum_j |a_j|·[x_j != hard_j]
 makes the candidate matrix ONE [P, w] x [w, 2^k] matmul.
 
 This script walks the wire tree under (a) the current leaf rules and
-(b) current + ML(w<=WMAX, info-suffix, 1<=k<=KMAX), reports node
-histograms and pre-/post-fusion op-count estimates per class, and
-applies the measured per-class us/op shares (docs/SCL_KERNEL.md §7h)
-to size the win.
+(b) current + ML(w<=WMAX, info-suffix, 1<=k<=KMAX), and reports node
+histograms and op counts per class after the leaf-fusion passes a
+fused decoder would apply.  It counts operations only; what each op
+class costs is a measurement on the card.
 """
 
 import collections
@@ -24,8 +24,8 @@ import sys
 import numpy as np
 
 sys.path.insert(0, ".")
-from modem_tpu.fec.polar import PolarCode  # noqa: E402
-from modem_tpu.numerology import MODES  # noqa: E402
+from modem.fec.polar import PolarCode  # noqa: E402
+from modem.numerology import MODES  # noqa: E402
 
 CHUNK = 512
 CHUNK2 = 128
@@ -54,8 +54,8 @@ def is_suffix_info(fz):
 
 def walk(frozen, ml=False, wmax=128, kmax=KMAX):
     """Count schedule ops per class, mimicking build_schedule's
-    emission + the Pallas fusion passes (REPSPC twins, leaf FL/GR
-    absorption, chain pairs)."""
+    emission + leaf-fusion passes (REPSPC twins, leaf FL/GR
+    absorption)."""
     n = len(frozen)
     counts = collections.Counter()
     ml_nodes = []
@@ -118,36 +118,16 @@ def walk(frozen, ml=False, wmax=128, kmax=KMAX):
     return counts, ml_nodes
 
 
-# measured F=16 us/op per class group (docs/SCL_KERNEL.md §7h; SHARES)
-US = {
-    "F_t1": 3.1, "G_t1": 3.1, "C_t1": 3.3,
-    "F_t2": 3.3, "G_t2": 3.3, "C_t2": 3.3,
-    "RATE0_t2": 3.3, "RATE0_FL_t2": 3.5, "RATE0_GR_t2": 3.7,
-    "REP_t2": 5.5, "REP_FL_t2": 6.0, "REP_GR_t2": 6.0,
-    "RATE1_t2": 13.6, "RATE1_FL_t2": 13.6, "RATE1_GR_t2": 14.9,
-    "SPC_t2": 13.6, "SPC_FL_t2": 13.6, "SPC_GR_t2": 14.3,
-    "SPC_t1": 14.3, "RATE1_t1": 13.6, "RATE0_t1": 3.3, "REP_t1": 5.5,
-    "REPSPC_t2": 17.2, "REPSPC_FL_t2": 17.2, "REPSPC_GR_t2": 18.3,
-    # ML estimate: select_flat + permutes of a one-shot leaf, minus
-    # the least_reliable extraction + flip build, plus 2 small matmuls
-    "ML_t2": 11.0, "ML_FL_t2": 11.0, "ML_GR_t2": 12.0,
-}
-
-
 def summarize(tag, counts):
     total = sum(v for v in counts.values() if v > 0)
-    t = 0.0
     by_class = collections.Counter()
     for (kind, w, tier), c in counts.items():
-        if c <= 0:
-            continue
-        by_class[f"{kind}_{tier}"] += c
-        t += c * US.get(f"{kind}_{tier}", 3.3)
-    print(f"-- {tag}: {total} ops, est {t / 1e3:.2f} ms/cell "
-          f"({t / 16e3:.3f} ms/frame @F=16)")
+        if c > 0:
+            by_class[f"{kind}_{tier}"] += c
+    print(f"-- {tag}: {total} ops")
     for k, v in sorted(by_class.items(), key=lambda kv: -kv[1]):
         print(f"   {k:14s} {v}")
-    return total, t
+    return total
 
 
 def main():
@@ -159,16 +139,15 @@ def main():
           f"frozen={int(frozen.sum())}")
 
     cur, _ = walk(frozen, ml=False)
-    t0, us0 = summarize("current rules", cur)
+    t0 = summarize("current rules", cur)
 
     for kmax in (5, 7):
         mlc, nodes = walk(frozen, ml=True, kmax=kmax)
-        t1, us1 = summarize(f"+ML leaves (k<={kmax})", mlc)
+        t1 = summarize(f"+ML leaves (k<={kmax})", mlc)
         hist = collections.Counter((w, k) for (w, k, _) in nodes)
         print(f"   ML nodes: {len(nodes)}; (w,k) histogram: "
               f"{dict(sorted(hist.items()))}")
-        print(f"   delta: ops {t0}->{t1} ({100 * (t1 - t0) / t0:+.1f}%),"
-              f" est time {100 * (us1 - us0) / us0:+.1f}%")
+        print(f"   delta: ops {t0}->{t1} ({100 * (t1 - t0) / t0:+.1f}%)")
 
     # how many current one-shot leaves are width-8 SPC (ML-table
     # eligible: k=7 -> exactly 128 codewords, no extraction needed)?

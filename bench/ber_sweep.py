@@ -19,19 +19,17 @@ sys.path.insert(0, ".")
 
 
 def main():
-    from modem_tpu import apply_env_platform
-    apply_env_platform()
-    from modem_tpu import bits as B
-    from modem_tpu import channel
-    from modem_tpu.encoder import Encoder
-    from modem_tpu.numerology import make_config
-    from modem_tpu.pipeline import BatchPipeline
+    from modem import bits as B
+    from modem import channel
+    from modem.encoder import Encoder
+    from modem.numerology import make_config
+    from modem.pipeline import BatchPipeline
 
     batch = int(sys.argv[1]) if len(sys.argv) > 1 else 8
     mode = int(sys.argv[2]) if len(sys.argv) > 2 else 6
     spread = int(sys.argv[3]) if len(sys.argv) > 3 else 10
     if len(sys.argv) > 4:
-        from modem_tpu import track
+        from modem import track
         track.ESTIMATOR = sys.argv[4]
     cfg = make_config(8000, mode, 2000)
     enc = Encoder(cfg)
@@ -44,7 +42,7 @@ def main():
     clean = [np.concatenate([sil, w, sil]) for w in waves]
 
     pipe = BatchPipeline(8000, mode)
-    from modem_tpu import track as _track
+    from modem import track as _track
     print(f"mode {mode}, batch {batch}, spread x{spread}, Theil-Sen "
           f"{_track.ESTIMATOR}; chain = multipath + CFO 234.567 Hz + "
           "SFO 147 ppm + AWGN:", flush=True)

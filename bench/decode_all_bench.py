@@ -18,12 +18,10 @@ sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
 
 def main():
-    from modem_tpu import apply_env_platform
-    apply_env_platform()
-    from modem_tpu import bits as B
-    from modem_tpu.encoder import Encoder
-    from modem_tpu.numerology import make_config
-    from modem_tpu.pipeline import decode_recording_auto
+    from modem import bits as B
+    from modem.encoder import Encoder
+    from modem.numerology import make_config
+    from modem.pipeline import decode_recording_auto
 
     args = [a for a in sys.argv[1:] if not a.startswith("--")]
     use_f32 = "--f32" in sys.argv
@@ -34,7 +32,7 @@ def main():
     payloads = [rng.integers(0, 256, cfg.mode.data_bytes,
                              dtype=np.uint8).tobytes() for _ in range(n)]
     enc = Encoder(cfg)
-    waves, _ = enc.encode_batch(payloads, B.base37_encode("TPU0MODEM"))
+    waves, _ = enc.encode_batch(payloads, B.base37_encode("N0MODEM"))
     gap = rate // 2
     flen = waves.shape[1]
     if use_f32:
@@ -46,8 +44,8 @@ def main():
         channels = 2
     else:
         # mono int16 wire format (the reference's acoustic use case):
-        # raw transfer + on-device front-end (modem_tpu/ingest.py)
-        from modem_tpu.ingest import PcmRecording
+        # raw transfer + on-device front-end (modem/ingest.py)
+        from modem.ingest import PcmRecording
         xm = np.zeros((flen + gap) * n + gap, dtype=np.float32)
         for i, w in enumerate(waves):
             s = gap + i * (flen + gap)

@@ -1,5 +1,5 @@
 #!/usr/bin/env python
-"""Mono-path robustness envelope vs the analytic path (VERDICT r2 #5).
+"""Mono-path robustness envelope vs the analytic path.
 
 The reference's headline acoustic workflow is ONE-channel 16-bit WAV
 (decode.cc:294-301: dequantise -> BlockDC -> Hilbert).  Every earlier
@@ -27,7 +27,7 @@ Usage: python bench/mono_sweep.py [--window=W] [--mono-only]
   levels: AWGN dB levels (default -40..-16 coarse grid)
   --window=W: Hilbert FIR window A/B (blackman/hamming/hann/rect/
     kaiser6/kaiser9 — dsp.HILBERT_WINDOW); wire-format irrelevant,
-    mono-sensitivity relevant (VERDICT r4 weak #5 / task 8)
+    mono-sensitivity relevant
   --mono-only: skip the analytic column (window A/Bs only move mono)
 """
 
@@ -39,22 +39,20 @@ sys.path.insert(0, ".")
 
 
 def main():
-    from modem_tpu import apply_env_platform
-    apply_env_platform()
     args = [a for a in sys.argv[1:] if not a.startswith("--")]
     flags = [a for a in sys.argv[1:] if a.startswith("--")]
     sys.argv = [sys.argv[0]] + args
     mono_only = "--mono-only" in flags
-    from modem_tpu import dsp
+    from modem import dsp
     for f in flags:
         if f.startswith("--window="):
             dsp.HILBERT_WINDOW = f.split("=", 1)[1]
-    from modem_tpu import bits as B
-    from modem_tpu import channel
-    from modem_tpu.encoder import Encoder
-    from modem_tpu.ingest import PcmRecording
-    from modem_tpu.numerology import make_config
-    from modem_tpu.pipeline import BatchPipeline
+    from modem import bits as B
+    from modem import channel
+    from modem.encoder import Encoder
+    from modem.ingest import PcmRecording
+    from modem.numerology import make_config
+    from modem.pipeline import BatchPipeline
 
     batch = int(sys.argv[1]) if len(sys.argv) > 1 else 8
     mode = int(sys.argv[2]) if len(sys.argv) > 2 else 6

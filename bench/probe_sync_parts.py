@@ -1,13 +1,12 @@
 #!/usr/bin/env python
-"""Decompose Synchronizer._metrics_parts cost on real hardware.
+"""Decompose Synchronizer._metrics_parts cost on the device.
 
-probe_stages measured sync metrics at 42 ms of the 74 ms batch-512
-demod front-end; the window-sum FLOP/HBM arithmetic predicts <10 ms,
-so something in the composition (pads/reshapes/repeats under vmap,
+The coarse-sync metrics are part of the batch demod front-end; where
+they cost more than their window-sum arithmetic predicts, something
+in the composition (pads/reshapes/repeats under vmap,
 HIGHEST-precision passes, poor fusion) costs more than the math.
-This probe times each sub-expression in isolation (same clock
-convention as probe_stages: in-graph digest, one fetch per rep,
-distinct inputs).
+This probe times each sub-expression in isolation (in-graph digest,
+one fetch per rep, distinct inputs).
 
 Usage: python bench/probe_sync_parts.py [batch] [T]
 """
@@ -45,14 +44,12 @@ def clock(name, fn, *argsets):
 
 
 def main():
-    from modem_tpu import apply_env_platform
-    apply_env_platform()
     import jax
     import jax.numpy as jnp
 
-    from modem_tpu import cplx
-    from modem_tpu.pipeline import BatchPipeline
-    from modem_tpu.sync import window_sum
+    from modem import cplx
+    from modem.pipeline import BatchPipeline
+    from modem.sync import window_sum
 
     batch = int(sys.argv[1]) if len(sys.argv) > 1 else 512
     T = int(sys.argv[2]) if len(sys.argv) > 2 else 88320

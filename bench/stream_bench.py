@@ -19,18 +19,16 @@ import numpy as np
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
-from modem_tpu import apply_env_platform
-apply_env_platform()
 
 
 def main():
     n_frames = int(sys.argv[1]) if len(sys.argv) > 1 else 16
     feed_s = float(sys.argv[2]) if len(sys.argv) > 2 else 1.0
 
-    from modem_tpu import bits as B
-    from modem_tpu.encoder import Encoder
-    from modem_tpu.numerology import make_config
-    from modem_tpu.stream import StreamDecoder
+    from modem import bits as B
+    from modem.encoder import Encoder
+    from modem.numerology import make_config
+    from modem.stream import StreamDecoder
 
     rate = 8000
     rng = np.random.default_rng(0)

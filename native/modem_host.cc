@@ -1,13 +1,13 @@
-// Native host runtime for the TPU modem: byte-level framing hot path.
+// Native host runtime for the modem: byte-level framing hot path.
 //
 // The reference implements its entire host pipeline in C++ (encode.cc /
 // decode.cc); in this framework the device math lives in XLA and the
 // host-side byte plumbing lives here: WAV sample (de)quantisation, the
 // xorshift32 payload scrambler, reflected CRCs and LSB/MSB bit packing.
-// Exposed as a plain C ABI consumed via ctypes (modem_tpu/native.py),
+// Exposed as a plain C ABI consumed via ctypes (modem/native.py),
 // with pure-numpy fallbacks when the library is not built.
 //
-// Semantics mirror modem_tpu/bits.py exactly (property-tested against
+// Semantics mirror modem/bits.py exactly (property-tested against
 // it in tests/test_native.py):
 //   * xorshift32: Marsaglia triplet (13, 17, 5), seed 2463534242,
 //     low byte of each state XORed onto the payload (encode.cc:417-419).

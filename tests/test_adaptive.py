@@ -1,15 +1,13 @@
-"""Adaptive (SC -> exact-SCL) decode path: kernel parity + pipeline.
+"""Adaptive (SC -> exact-SCL) decode path: L=1 parity + pipeline.
 
 The serving fast path decodes every frame with plain successive
-cancellation (the list_size=1 kernel, docs/SCL_KERNEL.md §8) and
-escalates only CRC-failing frames to the exact list decoder —
-reference path-selection semantics (decode.cc:530-555) with the same
-~2^-32 CRC false-accept exposure.  These tests pin:
+cancellation (the list_size=1 schedule VM) and escalates only
+CRC-failing frames to the exact list decoder — reference
+path-selection semantics (decode.cc:530-555) with the same ~2^-32 CRC
+false-accept exposure.  These tests pin:
 
-  * L=1 bit-exactness of the XLA VM against the numpy oracle and of
-    the specialized Pallas kernel (closed-form leaves, no lane
-    machinery) against the VM — exact AND fast modes, fused tier-2
-    ops included;
+  * L=1 bit-exactness of the VM against the numpy oracle, exact AND
+    fast modes (the batched VM's L=1 parity is in test_scl_batch.py);
   * AdaptivePipeline == BatchPipeline on every result key for batches
     with failures (the fallback returns the exact-SCL result
     verbatim), and zero-fallback clean batches.
@@ -20,12 +18,11 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from modem_tpu.fec.polar import PolarCode
-from modem_tpu.fec.scl_np import scl_decode_np
-from modem_tpu.fec.scl_vm import make_decoder
-from modem_tpu.kernels.scl_pallas import make_pallas_decoder
-from modem_tpu.parallel import toy_config, toy_recordings
-from modem_tpu.pipeline import AdaptivePipeline, BatchPipeline
+from modem.fec.polar import PolarCode
+from modem.fec.scl_np import scl_decode_np
+from modem.fec.scl_vm import make_decoder
+from modem.parallel import toy_config, toy_recordings
+from modem.pipeline import AdaptivePipeline, BatchPipeline
 
 TOY = PolarCode(n=224, k=144, order=8)
 
@@ -55,24 +52,6 @@ def test_vm_l1_matches_numpy_sc(toy_llrs, exact):
                                  TOY.frozen, 1)
         assert (cws[b] == cnp).all()
         assert np.allclose(pm[b], pnp, rtol=1e-4, atol=1e-2)
-
-
-@pytest.mark.parametrize("exact,frames_per_cell", [
-    (True, 4), (False, 8),
-    pytest.param(True, 8, marks=pytest.mark.slow),
-    pytest.param(False, 4, marks=pytest.mark.slow)])
-def test_pallas_l1_matches_vm(toy_llrs, exact, frames_per_cell):
-    """The specialized L=1 Pallas kernel (closed-form leaves, no
-    perm/select machinery) is bit-exact against the VM — the toy
-    schedule exercises the fused tier-2 FL/GR/REPSPC paths."""
-    ref = jax.jit(jax.vmap(make_decoder(TOY.frozen, 1, exact=exact)))
-    cws_r, pm_r = (np.asarray(v) for v in ref(jnp.asarray(toy_llrs)))
-    pal = make_pallas_decoder(TOY.frozen, 1,
-                              frames_per_cell=frames_per_cell,
-                              interpret=True, exact=exact)
-    cws_p, pm_p = (np.asarray(v) for v in pal(jnp.asarray(toy_llrs)))
-    assert (cws_p == cws_r).all()
-    assert np.allclose(pm_p, pm_r, rtol=1e-5, atol=1e-3)
 
 
 @pytest.fixture(scope="module")
@@ -142,11 +121,11 @@ def test_adaptive_decode_recording_auto_wire():
     """Wire-size adaptive decode-all: a two-frame mode-6 recording
     through decode_recording_auto(adaptive=True) — clean frames all
     take the SC path and the payloads are exact (the group pipeline
-    is AdaptivePipeline; docs/SCL_KERNEL.md §8)."""
-    from modem_tpu import bits as B
-    from modem_tpu.encoder import cached_encoder
-    from modem_tpu.numerology import make_config
-    from modem_tpu.pipeline import decode_recording_auto
+    is AdaptivePipeline)."""
+    from modem import bits as B
+    from modem.encoder import cached_encoder
+    from modem.numerology import make_config
+    from modem.pipeline import decode_recording_auto
 
     cfg = make_config(8000, 6, 2000)
     enc = cached_encoder(cfg)

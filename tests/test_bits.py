@@ -2,7 +2,7 @@
 
 import numpy as np
 
-from modem_tpu import bits
+from modem import bits
 
 
 def test_le_be_roundtrip():
@@ -80,7 +80,7 @@ def test_crc_check_matrix():
 def test_mls_period_and_balance():
     """MLS over a primitive polynomial has period 2^deg - 1 and is
     balanced (2^(deg-1) ones)."""
-    from modem_tpu import numerology as num
+    from modem import numerology as num
     for poly, length in [(num.MLS0_POLY, 127), (num.MLS1_POLY, 255),
                          (num.MLS2_POLY, 2047)]:
         seq = bits.mls_bits(poly, 2 * length)

@@ -10,11 +10,11 @@ impairments on the wire format.
 import numpy as np
 import pytest
 
-from modem_tpu import bits as B
-from modem_tpu import channel
-from modem_tpu.decoder import cached_decoder
-from modem_tpu.encoder import cached_encoder
-from modem_tpu.numerology import make_config
+from modem import bits as B
+from modem import channel
+from modem.decoder import cached_decoder
+from modem.encoder import cached_encoder
+from modem.numerology import make_config
 
 
 @pytest.fixture(scope="module")

@@ -8,7 +8,7 @@ parity.
 import numpy as np
 import pytest
 
-from modem_tpu.cli import main
+from modem.cli import main
 
 
 def test_encode_validation_errors(tmp_path, capsys):
@@ -57,7 +57,7 @@ def test_freezer_regenerates_tables(capsys):
     assert "frozen_64512_43072[2048]" in out
     assert "frozen_64800_43072[2048]" in out
     # spot-check against the shipped table
-    from modem_tpu.fec.freezer import frozen_mask, mask_to_words
+    from modem.fec.freezer import frozen_mask, mask_to_words
     words = mask_to_words(frozen_mask(64800, 43072, 16))
     assert f"0x{words[0]:x}," in out
 
@@ -94,7 +94,7 @@ def test_cli_impair_tools_match_library(tmp_path):
     """Each simulation-chain subcommand (multipath/cfo/sfo/awgn —
     README.md:42-49's disorders pipeline) must apply exactly the
     channel.py impairment to the WAV samples, up to requantization."""
-    from modem_tpu import channel, wav
+    from modem import channel, wav
 
     rng = np.random.default_rng(3)
     x = (0.4 * rng.standard_normal(4000)
@@ -151,7 +151,7 @@ def test_cli_simulation_chain_loopback(tmp_path):
 def test_cli_impair_mono_semantics(tmp_path):
     """Mono WAVs: cfo shifts the ANALYTIC signal (not ring
     modulation), awgn adds real noise at the stated total power."""
-    from modem_tpu import channel, wav
+    from modem import channel, wav
 
     rng = np.random.default_rng(4)
     x = (0.3 * rng.standard_normal(4000)).astype(np.float32)
@@ -161,7 +161,7 @@ def test_cli_impair_mono_semantics(tmp_path):
     out = str(tmp_path / "o.wav")
     q = 2.0 / 65535
 
-    from modem_tpu.cli import main
+    from modem.cli import main
     assert main(["cfo", out, src, "500"]) == 0
     y = wav.read_wav(out).samples[:, 0].astype(np.float64)
     want = channel.cfo(channel.analytic_np(xq), 500.0, 8000).real
@@ -179,8 +179,8 @@ def test_encode_missing_input_silently_encodes_ff(tmp_path):
     """Reference parity quirk (encode.cc:410-413): the open-failure
     branch tests ifstream::bad(), which a failed open does NOT set —
     the reference prints nothing and encodes an 0xFF-filled payload."""
-    from modem_tpu.cli import _read_input
-    from modem_tpu.numerology import DATA_BYTES
+    from modem.cli import _read_input
+    from modem.numerology import DATA_BYTES
     import io, contextlib
 
     err = io.StringIO()

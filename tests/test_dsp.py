@@ -10,7 +10,7 @@ Hilbert transformers, whatever default the measurements pick.
 import numpy as np
 import pytest
 
-from modem_tpu import dsp
+from modem import dsp
 
 
 TAPS = 161  # mode-6 filter_len at 8 kHz (decode.cc:172)

@@ -3,7 +3,7 @@
 import numpy as np
 import pytest
 
-from modem_tpu import cplx, fft
+from modem import cplx, fft
 
 SIZES = [640, 1280, 2560, 3528, 3840, 5120, 7056, 7680, 10240]
 

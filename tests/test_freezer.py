@@ -12,7 +12,7 @@ import re
 import numpy as np
 import pytest
 
-from modem_tpu.fec import freezer
+from modem.fec import freezer
 
 ORACLE = pathlib.Path("/root/reference/polar_tables.hh")
 

@@ -8,10 +8,10 @@ XLA-CPU (conftest); one full-size configuration plus front-end variants.
 import numpy as np
 import pytest
 
-from modem_tpu import bits as B
-from modem_tpu.decoder import Decoder, cached_decoder
-from modem_tpu.encoder import cached_encoder
-from modem_tpu.numerology import make_config
+from modem import bits as B
+from modem.decoder import Decoder, cached_decoder
+from modem.encoder import cached_encoder
+from modem.numerology import make_config
 
 
 @pytest.fixture(scope="module")
@@ -52,7 +52,7 @@ def test_loopback_real_mono_mode6(mode6_wave):
 
 def test_loopback_quantized_16bit(mode6_wave):
     """Through the WAV codec (16-bit quantization noise)."""
-    from modem_tpu import wav
+    from modem import wav
     import tempfile, os
     cfg, payload, rec, _ = mode6_wave
     with tempfile.TemporaryDirectory() as d:
@@ -78,7 +78,7 @@ def test_loopback_device_scl(mode6_wave):
 
 def test_loopback_8bit_wav(mode6_wave):
     """8-bit PCM round trip (encode.cc BITS=8 support)."""
-    from modem_tpu import wav
+    from modem import wav
     import tempfile, os
     cfg, payload, rec, _ = mode6_wave
     with tempfile.TemporaryDirectory() as d:
@@ -120,7 +120,7 @@ def test_failure_path_transcript(mode6_wave):
 
 
 def test_loopback_mono_impaired(mode6_wave):
-    """Mono robustness regression (VERDICT r2 #5): the reference's
+    """Mono robustness regression: the reference's
     headline acoustic workflow is ONE-channel 16-bit audio
     (decode.cc:294-301 dequantise -> BlockDC -> Hilbert).  Run the
     full reference impairment chain (x10-spread multipath + CFO
@@ -128,7 +128,7 @@ def test_loopback_mono_impaired(mode6_wave):
     projection quantised to int16, and require byte-exact recovery —
     pins the Hilbert/BlockDC margin under impairment, not just clean
     loopback (bench/mono_sweep.py measures the full envelope)."""
-    from modem_tpu import channel
+    from modem import channel
 
     cfg, payload, rec, _ = mode6_wave
     y = channel.multipath(rec, spread=10)

@@ -18,10 +18,10 @@ import dataclasses
 import numpy as np
 import pytest
 
-from modem_tpu import bits as B
-from modem_tpu.decoder import cached_decoder
-from modem_tpu.encoder import cached_encoder
-from modem_tpu.numerology import (MLS0_POLY, MLS1_POLY, MLS2_POLY,
+from modem import bits as B
+from modem.decoder import cached_decoder
+from modem.encoder import cached_encoder
+from modem.numerology import (MLS0_POLY, MLS1_POLY, MLS2_POLY,
                                   make_config)
 
 
@@ -117,7 +117,7 @@ def test_headers_batch_commits_detected_convention(fibonacci_wave):
     into the candidate (SyncCandidate.accept)."""
     _payload, rec = fibonacci_wave
     dec = cached_decoder(8000, mls_convention="auto")
-    from modem_tpu import cplx
+    from modem import cplx
     x = cplx.from_np(np.asarray(rec))
     cands = [c for c in dec.sync.scan(x) if c.ok]
     assert cands
@@ -134,6 +134,6 @@ def test_headers_batch_commits_detected_convention(fibonacci_wave):
 def test_batch_pipeline_rejects_auto():
     """The batch path pins one matched kernel; silently accepting
     'auto' would decode a foreign convention as noise."""
-    from modem_tpu.pipeline import BatchPipeline
+    from modem.pipeline import BatchPipeline
     with pytest.raises(ValueError, match="auto"):
         BatchPipeline(8000, 6, mls_convention="auto")

@@ -10,10 +10,10 @@ test_loopback.py.
 import numpy as np
 import pytest
 
-from modem_tpu import bits as B
-from modem_tpu.encoder import cached_encoder
-from modem_tpu.numerology import MODES, make_config
-from modem_tpu.pipeline import cached_pipeline
+from modem import bits as B
+from modem.encoder import cached_encoder
+from modem.numerology import MODES, make_config
+from modem.pipeline import cached_pipeline
 
 
 @pytest.mark.parametrize("mode", sorted(MODES))
@@ -36,7 +36,7 @@ def test_mode_loopback_pipeline(mode):
 
 def test_mode_table_consistency():
     """Derived numbers must match the documented table (SURVEY.md §2.2)."""
-    from modem_tpu.numerology import MODES
+    from modem.numerology import MODES
     rows = {6: 50, 7: 54, 8: 81, 9: 90, 10: 42, 11: 56, 12: 84, 13: 126}
     for m, want in rows.items():
         assert MODES[m].cons_rows == want

@@ -7,10 +7,10 @@ decoder's SKIP argument selects which frame to decode.
 import numpy as np
 import pytest
 
-from modem_tpu import bits as B
-from modem_tpu.decoder import cached_decoder
-from modem_tpu.encoder import cached_encoder
-from modem_tpu.numerology import make_config
+from modem import bits as B
+from modem.decoder import cached_decoder
+from modem.encoder import cached_encoder
+from modem.numerology import make_config
 
 
 @pytest.fixture(scope="module")
@@ -42,7 +42,7 @@ def test_skip_selects_frame(two_frames):
 def test_decode_recording_batches_all_frames(two_frames):
     """Serving path: every frame in one recording decodes in a single
     batched call (pipeline.decode_recording)."""
-    from modem_tpu.pipeline import cached_pipeline
+    from modem.pipeline import cached_pipeline
 
     cfg, payloads, rec = two_frames
     pipe = cached_pipeline(8000, 6)
@@ -58,7 +58,7 @@ def test_decode_recording_auto_mixed_modes():
     """Auto-mode serving: two frames of DIFFERENT modes in one
     recording; mode + callsign come from each frame's header
     (decode.cc:398-446), then each mode group batch-decodes."""
-    from modem_tpu.pipeline import decode_recording_auto
+    from modem.pipeline import decode_recording_auto
 
     rng = np.random.default_rng(9)
     waves, payloads = [], []
@@ -86,7 +86,7 @@ def test_decode_recording_auto_reports_header_rejects(two_frames):
     surfaces as a reject entry with the reference's rejection text
     (decode.cc:417-446) instead of silently disappearing, while the
     good frame still decodes."""
-    from modem_tpu.pipeline import decode_recording_auto
+    from modem.pipeline import decode_recording_auto
 
     cfg, payloads, rec = two_frames
     rec = np.array(rec)
@@ -112,7 +112,7 @@ def test_decode_recording_auto_reports_header_rejects(two_frames):
 def test_decode_recording_isolates_corrupt_frame(two_frames):
     """A destroyed frame must fail alone: its neighbors still decode
     bit-exact through the batched serving path."""
-    from modem_tpu.pipeline import cached_pipeline
+    from modem.pipeline import cached_pipeline
 
     cfg, payloads, rec = two_frames
     rec = np.array(rec)
@@ -137,8 +137,8 @@ def test_chunked_encode_matches_whole_graph():
     import jax
     import jax.numpy as jnp
 
-    from modem_tpu import cplx
-    from modem_tpu.parallel import toy_config
+    from modem import cplx
+    from modem.parallel import toy_config
 
     cfg = toy_config()
     enc = cached_encoder(cfg)

@@ -3,8 +3,8 @@
 import numpy as np
 import pytest
 
-from modem_tpu import bits as B
-from modem_tpu import native
+from modem import bits as B
+from modem import native
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -23,7 +23,7 @@ def test_scramble_matches_numpy():
 def test_crc_matches_numpy():
     rng = np.random.default_rng(1)
     data = rng.integers(0, 256, 1000, dtype=np.uint8).tobytes()
-    from modem_tpu.numerology import CRC16_POLY, CRC32_POLY
+    from modem.numerology import CRC16_POLY, CRC32_POLY
     assert native.crc_bytes(CRC32_POLY, data) == B.crc32.over_bytes(data)
     assert native.crc_bytes(CRC16_POLY, data) == B.crc16.over_bytes(data)
 
@@ -39,7 +39,7 @@ def test_bits_roundtrip_matches_numpy():
 def test_native_wav_codec_matches_python(tmp_path, monkeypatch):
     """Native RIFF read/write vs the numpy fallback: same files, same
     samples back (8/16-bit, 1/2 channels)."""
-    from modem_tpu import native, wav
+    from modem import native, wav
 
     if not native.available():
         import pytest

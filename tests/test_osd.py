@@ -3,8 +3,8 @@
 import numpy as np
 import pytest
 
-from modem_tpu.fec import bch
-from modem_tpu.fec.osd import osd_decode
+from modem.fec import bch
+from modem.fec.osd import osd_decode
 
 
 def test_generator_poly_degree():
@@ -72,7 +72,7 @@ def test_osd_matches_exhaustive_oracle():
     import jax
     import jax.numpy as jnp
 
-    from modem_tpu.fec.osd_np import osd_decode_np
+    from modem.fec.osd_np import osd_decode_np
 
     g = bch.generator_matrix()
     dev = jax.jit(lambda s: osd_decode(s))

@@ -4,8 +4,8 @@ import jax
 import numpy as np
 import pytest
 
-from modem_tpu import bits as B
-from modem_tpu.parallel import (make_mesh, sharded_decode, toy_config,
+from modem import bits as B
+from modem.parallel import (make_mesh, sharded_decode, toy_config,
                                 toy_pipeline, toy_recordings)
 
 
@@ -78,8 +78,8 @@ def test_sharded_sync_scan_matches_single_device():
     argmax carries recovered by composing per-chunk summaries)."""
     if len(jax.devices()) < 4:
         pytest.skip("needs >= 4 virtual devices")
-    from modem_tpu.parallel import sharded_sync
-    from modem_tpu.sync import Synchronizer
+    from modem.parallel import sharded_sync
+    from modem.sync import Synchronizer
 
     recs, _ = toy_recordings(1, seed=5)
     x = np.concatenate([np.asarray(recs[0])] * 6, axis=0)
@@ -104,7 +104,7 @@ def test_sharded_decode_recording_matches_single_device():
     single-device decode_recording byte-for-byte."""
     if len(jax.devices()) < 4:
         pytest.skip("needs >= 4 virtual devices")
-    from modem_tpu.parallel import sharded_decode_recording
+    from modem.parallel import sharded_decode_recording
 
     recs, payloads = toy_recordings(1, seed=8)
     x = np.concatenate([np.asarray(recs[0])] * 6, axis=0)
@@ -135,8 +135,8 @@ def test_sharded_decode_recording_pcm_wire_input():
     PcmRecording path byte-for-byte."""
     if len(jax.devices()) < 4:
         pytest.skip("needs >= 4 virtual devices")
-    from modem_tpu.ingest import PcmRecording
-    from modem_tpu.parallel import sharded_decode_recording
+    from modem.ingest import PcmRecording
+    from modem.parallel import sharded_decode_recording
 
     recs, payloads = toy_recordings(4, seed=2)
     x = np.concatenate([np.asarray(r) for r in recs], axis=0)
@@ -164,7 +164,7 @@ def test_strided_sync_matches_exact():
     full-rate metric decodes — the <=stride coarse-quantization is
     absorbed by the fine stage's pos_err correction
     (decode.cc:143-146) — on clean AND noisy recordings."""
-    from modem_tpu.pipeline import BatchPipeline
+    from modem.pipeline import BatchPipeline
 
     recs, payloads = toy_recordings(4, seed=11)
     rng = np.random.default_rng(13)
@@ -195,7 +195,7 @@ def test_sync_stride_fallback_when_indivisible():
     """44.1 kHz has match_del = 441 (not a multiple of 8): the
     pipeline must fall back to the exact full-rate metric rather than
     misalign the phase readout."""
-    from modem_tpu.pipeline import BatchPipeline
+    from modem.pipeline import BatchPipeline
 
     pipe = BatchPipeline(44100, 6)
     assert pipe.sync_stride == 1

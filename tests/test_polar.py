@@ -3,8 +3,8 @@
 import numpy as np
 import pytest
 
-from modem_tpu.fec.polar import PolarCode, polar_transform, polar_transform_np
-from modem_tpu.fec.scl_np import scl_decode_np
+from modem.fec.polar import PolarCode, polar_transform, polar_transform_np
+from modem.fec.scl_np import scl_decode_np
 
 TOY = PolarCode(n=224, k=150, order=8)
 
@@ -77,7 +77,7 @@ def test_scl_noiseless_and_noisy():
 
 def test_scl_list_rescues_crc_candidate():
     """With CRC selection, a non-best list path still yields the payload."""
-    from modem_tpu import bits as B
+    from modem import bits as B
     TOY = PolarCode(n=224, k=144, order=8)  # 112 payload bits + CRC32
     rng = np.random.default_rng(6)
     payload = rng.integers(0, 256, (TOY.k - 32) // 8, dtype=np.uint8)

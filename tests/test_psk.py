@@ -1,10 +1,13 @@
 """PSK map/hard/soft tests against the psk.hh behavioural spec
 (split-complex device API)."""
 
+import itertools
+
+import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from modem_tpu import psk
+from modem import psk
 
 
 def as_c(sym):
@@ -60,6 +63,22 @@ def test_mod_phase_matches_map():
         sym = as_c(psk.mod_map(mod_bits, bits))
         ph = np.asarray(psk.mod_phase(mod_bits, bits))
         assert np.allclose(np.exp(1j * ph), sym, atol=1e-6)
+
+
+@pytest.mark.parametrize("mod_bits", [1, 2, 3])
+def test_mod_phase_table_is_correctly_rounded(mod_bits):
+    """The angle table equals the float64 arctan2 of each f32 point
+    rounded once to f32, and XLA-CPU's own f32 arctan2 bit for bit (the
+    transmitted waveform was pinned with the latter)."""
+    bits = np.array(list(itertools.product((1.0, -1.0), repeat=mod_bits)),
+                    np.float32)
+    sym = np.asarray(psk.mod_map(mod_bits, bits))
+    ph = np.asarray(psk.mod_phase(mod_bits, bits))
+    want = np.arctan2(sym[:, 1].astype(np.float64),
+                      sym[:, 0].astype(np.float64)).astype(np.float32)
+    np.testing.assert_array_equal(ph, want)
+    np.testing.assert_array_equal(
+        ph, np.asarray(jnp.arctan2(sym[:, 1], sym[:, 0])))
 
 
 def test_np_map_matches_jax():

@@ -2,8 +2,8 @@
 live-emission property.
 
 The reference decodes live audio from a pipe sample-by-sample
-(decode.cc:294-301); modem_tpu.stream.StreamDecoder is the chunked
-TPU-native analog.  Frames fed incrementally must match
+(decode.cc:294-301); modem.stream.StreamDecoder is the chunked
+array-program analog.  Frames fed incrementally must match
 pipeline.decode_recording_auto on the full recording, emit BEFORE the
 stream ends, and hold only a bounded buffer.
 """
@@ -11,13 +11,13 @@ stream ends, and hold only a bounded buffer.
 import numpy as np
 import pytest
 
-from modem_tpu import bits as B
-from modem_tpu import cplx
-from modem_tpu.encoder import cached_encoder
-from modem_tpu.ingest import PcmRecording
-from modem_tpu.numerology import make_config
-from modem_tpu.pipeline import decode_recording_auto
-from modem_tpu.stream import StreamDecoder
+from modem import bits as B
+from modem import cplx
+from modem.encoder import cached_encoder
+from modem.ingest import PcmRecording
+from modem.numerology import make_config
+from modem.pipeline import decode_recording_auto
+from modem.stream import StreamDecoder
 
 
 @pytest.fixture(scope="module")
@@ -82,8 +82,8 @@ def test_stream_rejects_float_mono():
 
 
 def test_cli_decode_stream(two_frame_rec, tmp_path):
-    from modem_tpu import wav
-    from modem_tpu.cli import main
+    from modem import wav
+    from modem.cli import main
     rec, payloads = two_frame_rec
     wavf = str(tmp_path / "s.wav")
     wav.write_wav(wavf, rec.astype(np.complex64), 8000, 16, 2)
@@ -127,8 +127,8 @@ def test_stream_stereo_int16_and_mono_uint8(two_frame_rec):
 def test_cli_decode_stream_riff_quirks(two_frame_rec, tmp_path):
     """Odd-sized pre-data RIFF chunks are pad-aligned (RIFF word
     alignment); non-PCM / deep bit depths are rejected cleanly."""
-    from modem_tpu import wav
-    from modem_tpu.cli import main
+    from modem import wav
+    from modem.cli import main
     rec, payloads = two_frame_rec
     wavf = tmp_path / "s.wav"
     wav.write_wav(str(wavf), rec.astype(np.complex64), 8000, 16, 2)
@@ -154,7 +154,7 @@ def test_stream_mixed_modes():
     """Two frames of DIFFERENT modes in one stream: each frame's mode
     comes from its own header and the payload stage groups per mode
     (the stream analog of decode_recording_auto's mixed-mode path)."""
-    from modem_tpu.numerology import make_config as mk
+    from modem.numerology import make_config as mk
     rng = np.random.default_rng(9)
     waves, payloads = [], []
     for mode, call in ((10, "AB1CDE"), (12, "N0CALL")):
@@ -196,8 +196,8 @@ def test_cli_decode_stream_trailing_chunk(two_frame_rec, tmp_path):
     """RIFF chunks AFTER the data body (LIST/INFO metadata many tools
     append) must not be parsed as PCM: the stream honors the declared
     data size."""
-    from modem_tpu import wav
-    from modem_tpu.cli import main
+    from modem import wav
+    from modem.cli import main
     rec, payloads = two_frame_rec
     wavf = tmp_path / "s.wav"
     wav.write_wav(str(wavf), rec.astype(np.complex64), 8000, 16, 2)

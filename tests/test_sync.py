@@ -1,16 +1,15 @@
 """Sync primitives: window sums, Schmitt trigger, metric shape.
 
-window_sum is load-bearing: it replaced lax.reduce_window (whose TPU
-lowering took >16 min of XLA compile at these window sizes) with a
-two-level block-matmul scheme that must stay numerically drift-free
-(docs/PERFORMANCE.md trap 7).
+window_sum is load-bearing: it replaced lax.reduce_window (whose
+compile time grew with the window size) with a two-level block-matmul
+scheme that must stay numerically drift-free.
 """
 
 import numpy as np
 import pytest
 
-from modem_tpu.numerology import make_config
-from modem_tpu.sync import Synchronizer, schmitt_falling, window_sum
+from modem.numerology import make_config
+from modem.sync import Synchronizer, schmitt_falling, window_sum
 
 
 @pytest.mark.parametrize("t", [500, 512, 1000, 4096, 88320])
@@ -71,7 +70,7 @@ def test_chunked_scan():
     the same arithmetic differently per input shape; the chunk/context
     alignment keeps the addend SETS identical) and the fine-stage
     candidates exactly.  SURVEY §5 long-signal analog."""
-    from modem_tpu.parallel import toy_config, toy_recordings
+    from modem.parallel import toy_config, toy_recordings
 
     recs, _ = toy_recordings(1, seed=9)
     x = np.concatenate([np.asarray(recs[0])] * 6, axis=0)
@@ -98,7 +97,7 @@ def test_device_extraction_matches_host_scan():
     including Schmitt-state and running-argmax carries across chunk
     boundaries that land mid-plateau, noise-induced spurious edges,
     and first-max tie semantics."""
-    from modem_tpu.parallel import toy_config, toy_recordings
+    from modem.parallel import toy_config, toy_recordings
 
     recs, _ = toy_recordings(1, seed=3)
     one = np.asarray(recs[0])
@@ -126,8 +125,8 @@ def test_scan_reaches_late_frames():
     a 4x margin of raw edges — later frames must stay reachable (the
     reference's acquisition loop re-arms indefinitely,
     decode.cc:390-448)."""
-    from modem_tpu.parallel import toy_config, toy_recordings
-    from modem_tpu.sync import Synchronizer
+    from modem.parallel import toy_config, toy_recordings
+    from modem.sync import Synchronizer
 
     recs, _ = toy_recordings(1, seed=6)
     one = np.asarray(recs[0])
@@ -148,8 +147,8 @@ def test_dense_edges_per_chunk_cap_equivalence():
     set.  Pinned with ~24 real+spurious edges packed into one chunk
     against a cap of 8 (resolves the round-2 advisor's divergence
     concern affirmatively)."""
-    from modem_tpu.parallel import toy_config, toy_recordings
-    from modem_tpu.sync import Synchronizer
+    from modem.parallel import toy_config, toy_recordings
+    from modem.sync import Synchronizer
 
     recs, _ = toy_recordings(1, seed=3)
     one = np.asarray(recs[0])

@@ -2,8 +2,8 @@
 
 import numpy as np
 
-from modem_tpu import psk, track
-from modem_tpu.sync import schmitt_falling, window_sum
+from modem import psk, track
+from modem.sync import schmitt_falling, window_sum
 
 
 def test_theil_sen_recovers_line():
@@ -32,7 +32,7 @@ def test_derotate_removes_linear_phase():
     x = np.arange(cols) + code_off
     theta = 0.004 * x + 0.2
     rot = np.stack([np.cos(theta), np.sin(theta)], -1).astype(np.float32)
-    from modem_tpu import cplx
+    from modem import cplx
     import jax.numpy as jnp
     skew = np.asarray(cplx.cmul(jnp.asarray(sym),
                                 jnp.asarray(rot)[None, :, :]))

@@ -20,10 +20,10 @@ import os
 import numpy as np
 import pytest
 
-from modem_tpu import bits as B
-from modem_tpu.decoder import cached_decoder
-from modem_tpu.encoder import cached_encoder
-from modem_tpu.numerology import make_config
+from modem import bits as B
+from modem.decoder import cached_decoder
+from modem.encoder import cached_encoder
+from modem.numerology import make_config
 
 _DATA = os.path.join(os.path.dirname(__file__), "data")
 
@@ -56,8 +56,8 @@ def test_golden_recording_decodes():
     window placement, demap sign) fails HERE even if encoder and
     decoder drift together in fresh loopbacks.  An intentional format
     change regenerates BOTH fixtures (CLAUDE.md wire-format rule)."""
-    from modem_tpu import wav
-    from modem_tpu.decoder import Decoder
+    from modem import wav
+    from modem.decoder import Decoder
 
     payload = np.load(os.path.join(
         _DATA, "waveform_pin_payload_seed.npy")).tobytes()
@@ -82,8 +82,8 @@ def test_golden_per_convention_fixture_decodes(conv):
     fixture byte-exact AND commit the fixture's own convention (the
     recovered CFO pins it: a wrong-convention alias shifts the
     estimate by a multiple of the 2x bin spacing)."""
-    from modem_tpu import wav
-    from modem_tpu.decoder import Decoder
+    from modem import wav
+    from modem.decoder import Decoder
 
     payload = np.load(os.path.join(
         _DATA, "waveform_pin_payload_seed.npy")).tobytes()
@@ -103,7 +103,7 @@ def test_mls_sequence_value_pins():
     """First bits of each MLS sequence per convention: the property
     tests (test_mls_convention) prove m-sequence-ness but would pass
     ANY phase; these pin the exact emitted values."""
-    from modem_tpu.numerology import MLS0_POLY, MLS1_POLY
+    from modem.numerology import MLS0_POLY, MLS1_POLY
     pins = {
         ("galois", MLS0_POLY): [1, 0, 0, 1, 0, 0, 1, 1, 0, 1, 0, 0],
         ("fibonacci", MLS0_POLY): [1, 0, 0, 0, 0, 0, 0, 1, 0, 0, 0, 1],

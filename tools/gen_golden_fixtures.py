@@ -25,10 +25,10 @@ import numpy as np
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
-from modem_tpu import bits as B  # noqa: E402
-from modem_tpu import wav  # noqa: E402
-from modem_tpu.encoder import Encoder  # noqa: E402
-from modem_tpu.numerology import make_config  # noqa: E402
+from modem import bits as B  # noqa: E402
+from modem import wav  # noqa: E402
+from modem.encoder import Encoder  # noqa: E402
+from modem.numerology import make_config  # noqa: E402
 
 _DATA = os.path.join(os.path.dirname(__file__), "..", "tests", "data")
 LEAD = 2000  # 0.25 s at 8 kHz, matches the round-4 galois fixture
